@@ -2,9 +2,9 @@
 
 # CI gate (the reference's rust.yml fmt/clippy/test analog): byte-compile
 # lint, fast test tier, native build.  Run `make precompile` afterwards on
-# a TPU host to populate the persistent compile cache (the PGO analog).
+# the GPU host to populate the persistent compile cache (the PGO analog).
 ci: native
-	python -m py_compile $(shell find rustsasa_tpu benches scripts -name '*.py') bench.py __graft_entry__.py
+	python -m py_compile $(shell find rustsasa_jax benches scripts -name '*.py') bench.py __graft_entry__.py
 	python -m pytest tests/ -q -m "not slow"
 
 precompile:
@@ -24,9 +24,9 @@ bench:
 
 native:
 	g++ -O3 -march=native -std=c++17 -shared -fPIC \
-	    rustsasa_tpu/native/fastparse.cpp \
-	    -o rustsasa_tpu/native/libfastparse.so -lz
+	    rustsasa_jax/native/fastparse.cpp \
+	    -o rustsasa_jax/native/libfastparse.so -lz
 
 clean:
-	rm -rf rustsasa_tpu/native/libfastparse.so .jax_cache \
+	rm -rf rustsasa_jax/native/libfastparse.so .jax_cache \
 	    $(shell find . -name __pycache__ -type d)

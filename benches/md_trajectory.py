@@ -8,7 +8,7 @@ mdakit-sasa needs 448.4 s.  The trajectory itself is not downloadable here
 receptor-sized topology (~3k heavy atoms) and a physically plausible DCD
 (per-frame thermal jitter around the crystal coordinates), then streams it
 through compute_trajectory_sasa - static topology/radii resolved once,
-frame blocks batched through the fused TPU kernel, vectorized per-frame
+frame blocks batched through the fused device kernel, vectorized per-frame
 residue aggregation.
 
 Reports seconds total, ms/frame, and Matoms/s.  Default 2500 frames (the
@@ -22,7 +22,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache  # noqa: E402
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
@@ -39,8 +39,8 @@ REFERENCE_S = 22.7  # paper.md:45
 
 
 def main() -> int:
-    from rustsasa_tpu.io.read import read_structure
-    from rustsasa_tpu.trajectory import (
+    from rustsasa_jax.io.read import read_structure
+    from rustsasa_jax.trajectory import (
         compute_trajectory_sasa,
         write_dcd,
     )

@@ -29,9 +29,9 @@ def timeit(name, fn, reps=10, warmup=2):
 
 
 def main() -> int:
-    from rustsasa_tpu import SASAOptions, get_radius, read_structure
-    from rustsasa_tpu.levels import Level, build_selection
-    from rustsasa_tpu.ops.engine import calculate_sasa_internal
+    from rustsasa_jax import SASAOptions, get_radius, read_structure
+    from rustsasa_jax.levels import Level, build_selection
+    from rustsasa_jax.ops.engine import calculate_sasa_internal
 
     if not os.path.exists(EXAMPLE):
         print("example.cif not available", file=sys.stderr)

@@ -17,11 +17,12 @@ Prints per-stage and end-to-end latency over 25 reps (best and median).
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache  # noqa: E402
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
@@ -37,17 +38,17 @@ REPS = 25
 def main() -> int:
     import json
 
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.levels import Level
-    from rustsasa_tpu.native import native_process_file, pipe_library
-    from rustsasa_tpu.ops.engine import BatchedSasaEngine, SasaParams
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.levels import Level
+    from rustsasa_jax.native import native_process_file, pipe_library
+    from rustsasa_jax.ops.engine import BatchedSasaEngine, SasaParams
 
     options = SASAOptions(level=Level.RESIDUE)
     engine = BatchedSasaEngine(
         SasaParams(probe_radius=options.probe_radius,
                    n_points=options.n_points)
     )
-    out_path = "/tmp/single_protein_bench_out.json"
+    out_path = os.path.join(tempfile.gettempdir(), "single_protein_bench_out.json")
     assert pipe_library() is not None, "native library required for this bench"
 
     # The production single-file route (cli._run_single_native): native

@@ -3,31 +3,33 @@
 
 The reference's single-threaded row pins the per-core efficiency of its
 CPU pipeline (rayon pool of 1).  The analog here: ONE host worker thread
-for parse/select/emit (the TPU device is the same either way - accelerator
+for parse/select/emit (the device is the same either way - accelerator
 offload is the point of the design, so the device is not throttled).
 Reuses bench.py's corpus (run bench.py first to build it).
 """
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache  # noqa: E402
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
-CORPUS = "/tmp/rustsasa_tpu_bench_corpus"
-OUT = "/tmp/rustsasa_tpu_bench_out_1w"
+from bench import CORPUS_DIR as CORPUS  # noqa: E402
+
+OUT = os.path.join(tempfile.gettempdir(), "rustsasa_jax_bench_out_1w")
 REFERENCE_S = 26.0
 
 
 def main() -> int:
     import shutil
 
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.batch import process_directory
-    from rustsasa_tpu.levels import Level
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.batch import process_directory
+    from rustsasa_jax.levels import Level
 
     if not os.path.isdir(CORPUS):
         raise SystemExit("run bench.py first to build the corpus")

@@ -5,13 +5,14 @@ Two wire formats compile: the q13 path (discrete ProtOr-like radii ->
 palette fits; the production default) and the q16 fallback (forced here
 with a >163 A extent structure per chunk: real chunks fall back for big
 extents or occupancy-column radii)."""
+import os
 import sys
-sys.path.insert(0, "/root/repo")
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache
 enable_persistent_cache()
 import time
 import numpy as np
-import rustsasa_tpu.ops.engine as E
+import rustsasa_jax.ops.engine as E
 
 rng = np.random.default_rng(0)
 

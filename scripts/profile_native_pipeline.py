@@ -1,4 +1,4 @@
-"""Stage split of the ACTUAL batch pipeline (native fastpipe + fused TPU).
+"""Stage split of the ACTUAL batch pipeline (native fastpipe + fused device path).
 
 Measures, on a corpus slice, exactly what process_directory does:
   load    : native_process_file per file (thread pool, GIL-free C++)
@@ -6,25 +6,28 @@ Measures, on a corpus slice, exactly what process_directory does:
   device  : engine.compute warm (pack + transfer + kernel + readback)
   emit    : NativeSelection.emit per file (thread pool, GIL-free C++)
 
-Run AFTER bench.py built /tmp/rustsasa_tpu_bench_corpus, or pass a dir.
+Run AFTER bench.py built its corpus (bench.CORPUS_DIR), or pass a dir.
 """
 import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-sys.path.insert(0, "/root/repo")
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache  # noqa: E402
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
-from rustsasa_tpu.native import native_process_file  # noqa: E402
-from rustsasa_tpu.ops import fused_kernel  # noqa: E402
-from rustsasa_tpu.ops.engine import BatchedSasaEngine, SasaParams  # noqa: E402
+from rustsasa_jax.native import native_process_file  # noqa: E402
+from rustsasa_jax.ops import fused_kernel  # noqa: E402
+from rustsasa_jax.ops.engine import BatchedSasaEngine, SasaParams  # noqa: E402
 
-CORPUS = sys.argv[1] if len(sys.argv) > 1 else "/tmp/rustsasa_tpu_bench_corpus"
+from bench import CORPUS_DIR  # noqa: E402
+
+CORPUS = sys.argv[1] if len(sys.argv) > 1 else CORPUS_DIR
 LIMIT = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
-OUT = "/tmp/profile_native_out"
+OUT = os.path.join(tempfile.gettempdir(), "profile_native_out")
 
 all_files = sorted(os.listdir(CORPUS))
 step = max(1, len(all_files) // LIMIT)

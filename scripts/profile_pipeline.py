@@ -7,30 +7,33 @@ Stages measured independently on the bench corpus (or a slice of it):
   device     : engine.compute on the pre-parsed triples (transfer + kernel)
   emit       : fast_selection_json + file writes
 
-Run AFTER bench.py built /tmp/rustsasa_tpu_bench_corpus, or pass a dir.
+Run AFTER bench.py built its corpus (bench.CORPUS_DIR), or pass a dir.
 """
 import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-sys.path.insert(0, "/root/repo")
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache  # noqa: E402
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
 import numpy as np  # noqa: E402
 
-from rustsasa_tpu.api import SASAOptions  # noqa: E402
-from rustsasa_tpu.io.read import read_structure  # noqa: E402
-from rustsasa_tpu.io.serialize import fast_selection_json  # noqa: E402
-from rustsasa_tpu.levels import Level  # noqa: E402
-from rustsasa_tpu.ops import fused_kernel  # noqa: E402
-from rustsasa_tpu.ops.engine import BatchedSasaEngine, SasaParams  # noqa: E402
+from rustsasa_jax.api import SASAOptions  # noqa: E402
+from rustsasa_jax.io.read import read_structure  # noqa: E402
+from rustsasa_jax.io.serialize import fast_selection_json  # noqa: E402
+from rustsasa_jax.levels import Level  # noqa: E402
+from rustsasa_jax.ops import fused_kernel  # noqa: E402
+from rustsasa_jax.ops.engine import BatchedSasaEngine, SasaParams  # noqa: E402
 
-CORPUS = sys.argv[1] if len(sys.argv) > 1 else "/tmp/rustsasa_tpu_bench_corpus"
+from bench import CORPUS_DIR  # noqa: E402
+
+CORPUS = sys.argv[1] if len(sys.argv) > 1 else CORPUS_DIR
 LIMIT = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
-OUT = "/tmp/profile_out"
+OUT = os.path.join(tempfile.gettempdir(), "profile_out")
 
 files = sorted(os.path.join(CORPUS, f) for f in os.listdir(CORPUS))[:LIMIT]
 print(f"{len(files)} files", flush=True)

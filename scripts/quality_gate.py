@@ -1,15 +1,14 @@
 #!/usr/bin/env python
-"""Per-round TPU-path quality gate artifact.
+"""Device-path quality gate.
 
 Runs the 88-PDB FreeSASA gate (reference: tests/quality.rs:17-18,138-233,
 RMSE baseline 43.99 + 20 tolerance) through the PRODUCTION pipeline on
-whatever backend this host resolves - on a TPU host that is the fused q16
+whatever backend this host resolves - on a GPU host that is the fused
 banded path, which the pytest gate (pinned to the CPU/XLA backend) never
-exercises.  Writes a JSON artifact so every round pins the real kernel's
-accuracy; a kernel regression can't hide behind the CPU gate.
+exercises.  Prints the gate as JSON, and writes it to a file when one is
+named, so a kernel regression can't hide behind the CPU gate.
 
 Usage: python scripts/quality_gate.py [out.json]
-Default output: benches/artifacts/quality_latest.json
 """
 
 import json
@@ -18,7 +17,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rustsasa_tpu.utils.jax_cache import enable_persistent_cache  # noqa: E402
+from rustsasa_jax.utils.jax_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
 
@@ -52,7 +51,7 @@ def run_gate() -> dict:
     production pipeline on this host's backend (reference runs its gate at
     all depths too, quality.rs:224-257, plus the -R test :260-442).  The
     depths differ in gid semantics (protein-level drops alt-loc), which is
-    exactly where a TPU-path-only bug would hide."""
+    exactly where a device-path-only bug would hide."""
     import jax
 
     from quality_report import evaluate_depth, evaluate_occupancy
@@ -84,15 +83,11 @@ def run_gate() -> dict:
 
 
 def main() -> int:
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out_path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        repo, "benches", "artifacts", "quality_latest.json"
-    )
     result = run_gate()
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    with open(out_path, "w") as f:
-        json.dump(result, f, indent=1)
-        f.write("\n")
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(result, f, indent=1)
+            f.write("\n")
     print(json.dumps(result))
     return 0 if result["pass"] else 1
 

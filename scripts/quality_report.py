@@ -44,12 +44,12 @@ def evaluate_depth(depth: str, pdb_dir: str = DEFAULT_PDB_DIR,
 
     Returns a dict: n (matched comparisons), rmse, pearson_r, n_files,
     n_ok, errors (list of per-file error strings).  The backend is
-    whatever the engine resolves on this host - on a TPU host that is the
-    fused q16 banded production path.
+    whatever the engine resolves on this host - on a GPU host that is the
+    fused banded production path.
     """
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.batch import process_directory
-    from rustsasa_tpu.levels import Level
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.batch import process_directory
+    from rustsasa_jax.levels import Level
 
     use_file_total = depth in ("atom", "protein")
     out_dir = tempfile.mkdtemp(prefix=f"rsasa_quality_{depth}_")
@@ -132,7 +132,7 @@ def rewrite_occupancy_with_radii(pdb_text: str) -> str:
     """Stamp each ATOM/HETATM record's occupancy column (55-60) with its
     ProtOr radius (VdW fallback), like the reference's fifth quality test
     does via pdbtbx (quality.rs:289-324)."""
-    from rustsasa_tpu.radii import get_protor_radius, get_vdw_radius
+    from rustsasa_jax.radii import get_protor_radius, get_vdw_radius
 
     out_lines = []
     for line in pdb_text.splitlines():
@@ -159,9 +159,9 @@ def evaluate_occupancy(pdb_dir: str = DEFAULT_PDB_DIR,
     score against the same FreeSASA chain totals."""
     import gzip
 
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.batch import process_directory
-    from rustsasa_tpu.levels import Level
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.batch import process_directory
+    from rustsasa_jax.levels import Level
 
     modified_dir = tempfile.mkdtemp(prefix="rsasa_quality_occ_src_")
     for fname in sorted(os.listdir(pdb_dir)):

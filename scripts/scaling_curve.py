@@ -10,7 +10,7 @@ plus the collective-correctness assertions of tests/test_distributed.py
 
 This host has 2 CPU cores, so the expected honest shape is ~linear from
 1 -> 2 workers and saturation at 4 (documented in the artifact); on a
-real multi-host TPU pod each process owns its own chips and host cores,
+real multi-host cluster each process owns its own cards and host cores,
 and the same sharding/allreduce machinery is what scales.
 
 Usage: python scripts/scaling_curve.py [out_artifact]
@@ -21,6 +21,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,10 +125,7 @@ def run_config(nprocs: int, input_dir: str, scratch: str) -> dict:
 
 
 def main() -> int:
-    out_path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        REPO, "benches", "artifacts", "scaling_curve_r04.json"
-    )
-    scratch = "/tmp/rsasa_scaling"
+    scratch = os.path.join(tempfile.gettempdir(), "rsasa_scaling")
     input_dir = os.path.join(scratch, "corpus")
     os.makedirs(scratch, exist_ok=True)
     n = build_corpus(input_dir)
@@ -142,16 +140,17 @@ def main() -> int:
             f"measures data-parallel scaling at fixed per-process "
             f"resources; with {os.cpu_count()} host cores the expected "
             "honest shape is ~linear 1->2 processes and degradation at 4 "
-            "(oversubscription) - on a pod every process owns its own "
-            "chips+cores and the same shard/psum machinery scales on; "
+            "(oversubscription) - on a cluster every process owns its own "
+            "cards+cores and the same shard/psum machinery scales on; "
             "all workers must agree on the psum-allreduced global report "
             "and every input is covered exactly once"
         ),
         "rows": rows,
     }
-    with open(out_path, "w") as f:
-        json.dump(result, f, indent=1)
-        f.write("\n")
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(result, f, indent=1)
+            f.write("\n")
     print(json.dumps(result, indent=1))
     return 0
 

@@ -41,9 +41,9 @@ def main() -> int:
     )
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.levels import Level
-    from rustsasa_tpu.parallel.distributed import process_directory_distributed
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.levels import Level
+    from rustsasa_jax.parallel.distributed import process_directory_distributed
 
     import time
 

@@ -8,9 +8,9 @@ dispatched work itself; this test runs a corpus 5x the (shrunken) cap of
 minimum-size files and must complete.
 """
 
-import rustsasa_tpu.batch as batch
-from rustsasa_tpu.api import SASAOptions
-from rustsasa_tpu.levels import Level
+import rustsasa_jax.batch as batch
+from rustsasa_jax.api import SASAOptions
+from rustsasa_jax.levels import Level
 
 _TINY_PDB = """\
 ATOM      1  N   ALA A   1      11.104   6.134  -6.504  1.00  0.00           N

@@ -10,9 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from rustsasa_tpu.cli import main
-from rustsasa_tpu.io.read import read_structure
-from rustsasa_tpu.io.serialize import parse_json_result
+from rustsasa_jax.cli import main
+from rustsasa_jax.io.read import read_structure
+from rustsasa_jax.io.serialize import parse_json_result
 
 GOLDEN = np.load("tests/data/golden_example_atom_sasa.npy")
 
@@ -175,8 +175,8 @@ def test_radii_from_occupancy(tmp_path):
 
 def test_trajectory_cli(tmp_path):
     import numpy as np
-    from rustsasa_tpu.trajectory import write_dcd
-    from rustsasa_tpu.io.read import read_structure
+    from rustsasa_jax.trajectory import write_dcd
+    from rustsasa_jax.io.read import read_structure
 
     top = tmp_path / "top.pdb"
     top.write_text(

@@ -34,7 +34,7 @@ def test_readme_python_examples(tmp_path, monkeypatch, example_cif):
 
 
 def test_api_docstring_example(monkeypatch):
-    import rustsasa_tpu.api as api
+    import rustsasa_jax.api as api
 
     doc = api.__doc__ or ""
     m = re.search(r"Example:\n(.*)", doc, flags=re.DOTALL)
@@ -47,7 +47,7 @@ def test_api_docstring_example(monkeypatch):
     # The example uses a repo-relative fixture path.
     monkeypatch.chdir(REPO_ROOT)
     ns: dict = {}
-    exec(compile(code, "rustsasa_tpu/api.py[docstring]", "exec"), ns)
+    exec(compile(code, "rustsasa_jax/api.py[docstring]", "exec"), ns)
     result = ns.get("result")
     assert result is not None and len(result.residues) == 330
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rustsasa_tpu.ops.engine import (
+from rustsasa_jax.ops.engine import (
     BatchedSasaEngine,
     SasaParams,
     _dense_gids,
@@ -38,7 +38,7 @@ def test_overflow_rebucket_exactness():
     radii = np.full(n, 1.8, np.float32)
     out = calculate_sasa_internal(coords, radii, backend="xla")
     # Brute-force check on a few atoms.
-    from rustsasa_tpu.ops.sphere import sphere_points
+    from rustsasa_jax.ops.sphere import sphere_points
 
     S = sphere_points(100)
     probe = 1.4
@@ -78,7 +78,7 @@ def test_row_chunked_neighbor_phase_matches_dense():
     """The row-chunked big-N path must produce identical results."""
     import functools
     import jax
-    import rustsasa_tpu.ops.engine as E
+    import rustsasa_jax.ops.engine as E
 
     rng = np.random.default_rng(5)
     n = 1024  # multiple of the patched row chunk below
@@ -99,9 +99,9 @@ def test_row_chunked_neighbor_phase_matches_dense():
 
 
 def test_warm_shapes_noop_on_cpu():
-    """warm_shapes targets the fused TPU path; on the CPU/XLA backend it
-    must return immediately without dispatching anything."""
-    from rustsasa_tpu.ops.engine import BatchedSasaEngine, SasaParams
+    """warm_shapes targets the fused device path; on the CPU/XLA backend
+    it must return immediately without dispatching anything."""
+    from rustsasa_jax.ops.engine import BatchedSasaEngine, SasaParams
 
     eng = BatchedSasaEngine(SasaParams(), backend="xla")
     assert eng.warm_shapes() == 0.0
@@ -112,8 +112,8 @@ def test_engine_routes_small_structures_to_q13(monkeypatch):
     normal-extent structures and fall back per split for big ones."""
     import numpy as np
 
-    import rustsasa_tpu.ops.fused_kernel as fk
-    from rustsasa_tpu.ops.engine import BatchedSasaEngine, SasaParams
+    import rustsasa_jax.ops.fused_kernel as fk
+    from rustsasa_jax.ops.engine import BatchedSasaEngine, SasaParams
 
     calls = []
     orig13 = fk.fused_sasa_q13_banded
@@ -129,7 +129,7 @@ def test_engine_routes_small_structures_to_q13(monkeypatch):
 
     monkeypatch.setattr(fk, "fused_sasa_q13_banded", spy13)
     monkeypatch.setattr(fk, "fused_sasa_q16_banded", spy16)
-    monkeypatch.setenv("RUSTSASA_TPU_BACKEND", "fused_interpret")
+    monkeypatch.setenv("RUSTSASA_BACKEND", "fused_interpret")
 
     rng = np.random.default_rng(0)
     rset = np.array([1.55, 1.61, 1.77], np.float32)

@@ -17,8 +17,8 @@ import pytest
 
 from conftest import REFERENCE_DATA
 
-from rustsasa_tpu.io.read import StructureReadError, parse_structure
-from rustsasa_tpu.native import parse_file_native, pipe_library
+from rustsasa_jax.io.read import StructureReadError, parse_structure
+from rustsasa_jax.native import parse_file_native, pipe_library
 
 
 def _load(name: str) -> bytes:

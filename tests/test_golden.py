@@ -11,7 +11,7 @@ Mirrors the reference regression suite (reference: tests/units.rs):
 import numpy as np
 import pytest
 
-from rustsasa_tpu import (
+from rustsasa_jax import (
     Level,
     SASAOptions,
     calculate_sasa_internal,

@@ -3,17 +3,17 @@
 import numpy as np
 import pytest
 
-from rustsasa_tpu import SASAOptions, parse_structure
-from rustsasa_tpu.io.pdb import parse_pdb, write_pdb
-from rustsasa_tpu.io.cif import parse_cif, write_cif
-from rustsasa_tpu.io.serialize import (
+from rustsasa_jax import SASAOptions, parse_structure
+from rustsasa_jax.io.pdb import parse_pdb, write_pdb
+from rustsasa_jax.io.cif import parse_cif, write_cif
+from rustsasa_jax.io.serialize import (
     SerializationError,
     parse_json_result,
     sasa_result_to_bfactors,
     sasa_result_to_json,
     sasa_result_to_xml,
 )
-from rustsasa_tpu.levels import (
+from rustsasa_jax.levels import (
     ChainResult,
     Level,
     ProteinResult,
@@ -184,9 +184,9 @@ def test_parse_structure_sniffs_format():
 
 
 def test_fast_selection_json_matches_generic():
-    from rustsasa_tpu.io.serialize import fast_selection_json
-    from rustsasa_tpu.levels import aggregate, build_selection
-    from rustsasa_tpu.ops.engine import calculate_sasa_internal
+    from rustsasa_jax.io.serialize import fast_selection_json
+    from rustsasa_jax.levels import aggregate, build_selection
+    from rustsasa_jax.ops.engine import calculate_sasa_internal
     import json as _json
 
     s = parse_structure(PDB_2RES.encode())
@@ -212,9 +212,9 @@ def test_fast_selection_json_matches_generic():
 
 
 def test_fast_selection_xml_matches_generic():
-    from rustsasa_tpu.io.serialize import fast_selection_xml
-    from rustsasa_tpu.levels import aggregate, build_selection
-    from rustsasa_tpu.ops.engine import calculate_sasa_internal
+    from rustsasa_jax.io.serialize import fast_selection_xml
+    from rustsasa_jax.levels import aggregate, build_selection
+    from rustsasa_jax.ops.engine import calculate_sasa_internal
 
     s = parse_structure(PDB_2CHAINS.encode())
     for level in (Level.ATOM, Level.RESIDUE, Level.CHAIN, Level.PROTEIN):
@@ -273,7 +273,7 @@ def test_multi_model_pdb_keeps_first_model():
 
 
 def test_multi_model_pdb_native_pipeline(tmp_path):
-    from rustsasa_tpu.native import NativeFallback, native_process_file
+    from rustsasa_jax.native import NativeFallback, native_process_file
 
     p = tmp_path / "nmr.pdb"
     p.write_text(PDB_2MODELS)
@@ -298,10 +298,10 @@ def test_bfactor_fast_path_matches_hierarchy_walk(reference_data_dir):
     multi-chain serial collisions and excluded (H/HETATM) atoms."""
     import numpy as np
 
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.io import serialize as ser
-    from rustsasa_tpu.io.read import read_structure
-    from rustsasa_tpu.levels import Level
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.io import serialize as ser
+    from rustsasa_jax.io.read import read_structure
+    from rustsasa_jax.levels import Level
 
     files = [
         reference_data_dir / "pdbs" / "example.cif",
@@ -325,9 +325,9 @@ def test_nonfinite_structure_rejected(tmp_path):
     and NaN-asymmetric culling reductions)."""
     import pytest as _pytest
 
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.io.read import parse_structure
-    from rustsasa_tpu.levels import Level
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.io.read import parse_structure
+    from rustsasa_jax.levels import Level
 
     pdb = (
         "ATOM      1  N   MET A   1         nan  12.019 -23.063  1.00  0.00"
@@ -340,7 +340,7 @@ def test_nonfinite_structure_rejected(tmp_path):
         SASAOptions(level=Level.RESIDUE).build_selection(st)
 
     # Native pipeline: same typed rejection.
-    from rustsasa_tpu.native import native_process_file, pipe_library
+    from rustsasa_jax.native import native_process_file, pipe_library
 
     if pipe_library() is not None:
         p = tmp_path / "nan.pdb"

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from rustsasa_tpu.io.read import read_structure
-from rustsasa_tpu.native import load_library
+from rustsasa_jax.io.read import read_structure
+from rustsasa_jax.native import load_library
 
 
 pytestmark = pytest.mark.skipif(
@@ -70,7 +70,7 @@ def test_native_interned_codes(example_cif):
 
 
 def test_native_error_on_missing_file():
-    from rustsasa_tpu.io.read import StructureReadError
+    from rustsasa_jax.io.read import StructureReadError
 
     with pytest.raises(StructureReadError):
         read_structure("/nonexistent/file.pdb", native=True)
@@ -84,7 +84,7 @@ def test_lean_parse_coords_match_full():
 
     import numpy as np
 
-    from rustsasa_tpu.native import load_library
+    from rustsasa_jax.native import load_library
 
     lib = load_library()
     if lib is None or not hasattr(lib, "fastparse_file_lean"):

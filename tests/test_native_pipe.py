@@ -11,11 +11,11 @@ import os
 import numpy as np
 import pytest
 
-from rustsasa_tpu.api import SASAOptions
-from rustsasa_tpu.io.read import read_structure
-from rustsasa_tpu.io.serialize import fast_selection_json, fast_selection_xml
-from rustsasa_tpu.levels import Level
-from rustsasa_tpu.native import (
+from rustsasa_jax.api import SASAOptions
+from rustsasa_jax.io.read import read_structure
+from rustsasa_jax.io.serialize import fast_selection_json, fast_selection_xml
+from rustsasa_jax.levels import Level
+from rustsasa_jax.native import (
     NativeFallback,
     native_process_file,
     pipe_library,
@@ -142,7 +142,7 @@ def test_native_occupancy_and_hydrogens():
 
 
 def test_native_radius_missing_error():
-    from rustsasa_tpu.radii import RadiusMissingError
+    from rustsasa_jax.radii import RadiusMissingError
 
     path = str(PDB_DIR / "example.cif")
     # HETATMs included without vdW fallback -> unknown (res, atom) pairs.
@@ -159,7 +159,7 @@ def test_native_radius_missing_error():
 
 
 def test_native_missing_file_error():
-    from rustsasa_tpu.io.read import StructureReadError
+    from rustsasa_jax.io.read import StructureReadError
 
     with pytest.raises((StructureReadError, NativeFallback)):
         native_process_file(
@@ -172,8 +172,8 @@ def test_native_missing_file_error():
 def _pack_parity_case(structures):
     import numpy as np
 
-    from rustsasa_tpu.native import fastpack
-    from rustsasa_tpu.ops.fused_kernel import _pack_structures_numpy
+    from rustsasa_jax.native import fastpack
+    from rustsasa_jax.ops.fused_kernel import _pack_structures_numpy
 
     a = fastpack(structures, 1.4)
     if a is None:
@@ -223,14 +223,14 @@ def test_fused_counts_native_emit_parity(reference_data_dir, tmp_path, monkeypat
     """The fully-fused sink (device counts -> C++ emit_counts) must write
     byte-identical output to the Python unpack + emit route.  Runs the
     production fused path in interpret mode so it works on the CPU suite."""
-    import rustsasa_tpu.batch as batch_mod
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.levels import Level
-    from rustsasa_tpu.native import pipe_library
+    import rustsasa_jax.batch as batch_mod
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.levels import Level
+    from rustsasa_jax.native import pipe_library
 
     if pipe_library() is None:
         pytest.skip("native library unavailable")
-    monkeypatch.setenv("RUSTSASA_TPU_BACKEND", "fused_interpret")
+    monkeypatch.setenv("RUSTSASA_BACKEND", "fused_interpret")
 
     src = tmp_path / "in"
     src.mkdir()
@@ -256,7 +256,7 @@ def test_fused_counts_native_emit_parity(reference_data_dir, tmp_path, monkeypat
     assert report.total_area > 0
 
     # Reference route: XLA backend + Python serialization.
-    monkeypatch.setenv("RUSTSASA_TPU_BACKEND", "xla")
+    monkeypatch.setenv("RUSTSASA_BACKEND", "xla")
     xla_out = tmp_path / "xla"
     report2 = batch_mod.process_directory(
         str(src), str(xla_out), SASAOptions(level=Level.RESIDUE),
@@ -280,14 +280,14 @@ def test_fused_counts_native_sink_bytes_match_python_unpack(
     files to the Python route (CountsView materialization + handle.emit)
     on the SAME fused backend - this pins the bit-identical contract the
     cross-backend test above cannot (it allows numeric tolerance)."""
-    import rustsasa_tpu.batch as batch_mod
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.levels import Level
-    from rustsasa_tpu.native import pipe_library
+    import rustsasa_jax.batch as batch_mod
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.levels import Level
+    from rustsasa_jax.native import pipe_library
 
     if pipe_library() is None:
         pytest.skip("native library unavailable")
-    monkeypatch.setenv("RUSTSASA_TPU_BACKEND", "fused_interpret")
+    monkeypatch.setenv("RUSTSASA_BACKEND", "fused_interpret")
 
     import gzip
     import shutil as _sh
@@ -365,8 +365,8 @@ def test_native_pipeline_custom_radii_matches_python(tmp_path, monkeypatch):
     import gzip
     import shutil as _sh
 
-    import rustsasa_tpu.batch as batch_mod
-    from rustsasa_tpu.radii import parse_radii_config
+    import rustsasa_jax.batch as batch_mod
+    from rustsasa_jax.radii import parse_radii_config
 
     src = tmp_path / "in"
     src.mkdir()
@@ -414,8 +414,8 @@ def test_native_pipeline_custom_radii_matches_python(tmp_path, monkeypatch):
 
 
 def test_fastpack_q13_matches_numpy():
-    from rustsasa_tpu.native import fastpack_q13
-    from rustsasa_tpu.ops.fused_kernel import _pack_structures_q13_numpy
+    from rustsasa_jax.native import fastpack_q13
+    from rustsasa_jax.ops.fused_kernel import _pack_structures_q13_numpy
 
     rng = np.random.default_rng(2)
     rset = np.array([1.55, 1.61, 1.64, 1.42, 1.77, 1.2], np.float32)
@@ -441,8 +441,8 @@ def test_fastpack_q13_matches_numpy():
 
 
 def test_fastpack_q13_ineligible_cases():
-    from rustsasa_tpu.native import fastpack_q13
-    from rustsasa_tpu.ops.fused_kernel import _pack_structures_q13_numpy
+    from rustsasa_jax.native import fastpack_q13
+    from rustsasa_jax.ops.fused_kernel import _pack_structures_q13_numpy
 
     rng = np.random.default_rng(3)
     # Extent beyond MAX_Q13_EXTENT: both implementations must decline.
@@ -465,7 +465,7 @@ def test_fastpack_q13_ineligible_cases():
 def test_q13_roundtrip_accuracy():
     """Dequantized q13 planes must match the raw coordinates within the
     quantization step and radii EXACTLY (palette carries exact f32)."""
-    from rustsasa_tpu.ops.fused_kernel import (
+    from rustsasa_jax.ops.fused_kernel import (
         MAX_Q13_EXTENT,
         _pack_structures_q13_numpy,
     )

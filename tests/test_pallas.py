@@ -1,14 +1,15 @@
-"""Pallas occlusion kernel parity tests (interpret mode on CPU).
+"""Occlusion counts kernel parity tests (interpret mode on CPU).
 
-The Pallas tile kernel must agree with the XLA scan path exactly (both are
-f32 with the same comparison semantics).
+The Pallas kernel must agree with the plain XLA counts exactly (both are
+f32 with the same comparison semantics), and the fused path with the XLA
+list path up to coordinate quantization.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustsasa_tpu.ops.engine import BatchedSasaEngine, SasaParams, calculate_sasa_internal
+from rustsasa_jax.ops.engine import BatchedSasaEngine, SasaParams, calculate_sasa_internal
 
 
 def random_cluster(n, seed, spread=12.0):
@@ -18,38 +19,69 @@ def random_cluster(n, seed, spread=12.0):
     return coords, radii
 
 
-@pytest.mark.parametrize("n", [128, 300])
-def test_pallas_matches_xla_single(n):
-    coords, radii = random_cluster(n, seed=n)
-    ref = calculate_sasa_internal(coords, radii, backend="xla")
-    out = calculate_sasa_internal(coords, radii, backend="pallas_interpret")
-    np.testing.assert_allclose(out, ref, atol=1e-3)
-    assert (ref > 0).any()
+def _kernel_inputs(n_atoms, seed, *, clear_bits=False, empty_row=False):
+    """Packed planes + host-culled j-lists for one random cluster."""
+    from rustsasa_jax.ops.fused_kernel import (
+        N_PLANES,
+        N_XFER_PLANES,
+        _pack_structures_numpy,
+    )
+
+    coords, radii = random_cluster(n_atoms, seed=seed)
+    gids = np.arange(n_atoms, dtype=np.int32)
+    planes5, jlist, _, failed = _pack_structures_numpy(
+        [(coords, radii, gids)], 1.4, 100
+    )
+    assert not failed
+    planes = np.zeros((N_PLANES, planes5.shape[1]), np.float32)
+    planes[:N_XFER_PLANES] = planes5
+    jlist = jlist.copy()
+    if clear_bits:
+        # Drop every other admitted group: the kernel must skip exactly
+        # the groups the reference masks out.
+        jlist[:, 1:] &= np.uint32(0x5555FFFF)
+    if empty_row:
+        jlist[0, 0] = 0
+    return planes, jlist
 
 
-def test_pallas_matches_xla_batched():
-    structures = []
-    for i, n in enumerate([100, 180, 256]):
-        coords, radii = random_cluster(n, seed=10 + i)
-        structures.append((coords, radii, None))
-    xla = BatchedSasaEngine(SasaParams(), backend="xla").compute(structures)
-    pal = BatchedSasaEngine(
-        SasaParams(), backend="pallas_interpret"
-    ).compute(structures)
-    for a, b in zip(xla, pal):
-        np.testing.assert_allclose(a, b, atol=1e-3)
+@pytest.mark.parametrize("n_points", [60, 100, 256])
+def test_counts_kernel_matches_counts_xla(n_points):
+    """Interpret-mode kernel vs the plain XLA counts: point padding
+    (60, 100 -> whole point blocks) and several point blocks (256)."""
+    from rustsasa_jax.ops.engine import _sphere_packed
+    from rustsasa_jax.ops.fused_kernel import _counts_call, counts_xla
+
+    planes, jlist = _kernel_inputs(300, seed=n_points)
+    sphere = _sphere_packed(n_points)
+    ker = np.asarray(_counts_call(planes, jlist, sphere, interpret=True))
+    ref = np.asarray(counts_xla(planes, jlist, sphere))
+    np.testing.assert_array_equal(ker, ref)
+    assert ker.max() <= n_points and (ker[:300] > 0).any()
 
 
-def test_pallas_n_points_variants():
-    coords, radii = random_cluster(128, seed=3)
-    for n_points in (60, 100, 256):
-        ref = calculate_sasa_internal(
-            coords, radii, n_points=n_points, backend="xla"
-        )
-        out = calculate_sasa_internal(
-            coords, radii, n_points=n_points, backend="pallas_interpret"
-        )
-        np.testing.assert_allclose(out, ref, atol=1e-3)
+def test_counts_kernel_cleared_bits_and_empty_row():
+    from rustsasa_jax.ops.engine import _sphere_packed
+    from rustsasa_jax.ops.fused_kernel import (
+        ATOM_TILE,
+        _counts_call,
+        counts_xla,
+    )
+
+    planes, jlist = _kernel_inputs(
+        300, seed=5, clear_bits=True, empty_row=True
+    )
+    sphere = _sphere_packed(100)
+    ker = np.asarray(_counts_call(planes, jlist, sphere, interpret=True))
+    ref = np.asarray(counts_xla(planes, jlist, sphere))
+    np.testing.assert_array_equal(ker, ref)
+    # An empty j-list row leaves every real atom of its tile unoccluded.
+    assert (ker[:ATOM_TILE] == 100).all()
+    full = np.asarray(
+        counts_xla(*_kernel_inputs(300, seed=5), sphere)
+    )
+    assert (ker[ATOM_TILE:300] >= full[ATOM_TILE:300]).all()
+    assert (ker[ATOM_TILE:300] > full[ATOM_TILE:300]).any()
 
 
 @pytest.mark.parametrize("n", [100, 128, 500])
@@ -105,7 +137,7 @@ def test_banded_jlist_never_culls_true_neighbors():
     """
     import jax
 
-    from rustsasa_tpu.ops.fused_kernel import (
+    from rustsasa_jax.ops.fused_kernel import (
         ATOM_TILE,
         J_GROUP,
         R_QUANT,
@@ -160,8 +192,8 @@ def test_banded_jlist_never_culls_true_neighbors():
 
 
 def test_pack_q16_native_matches_numpy():
-    from rustsasa_tpu.native import fastpack_q16
-    from rustsasa_tpu.ops.fused_kernel import _pack_structures_q16_numpy
+    from rustsasa_jax.native import fastpack_q16
+    from rustsasa_jax.ops.fused_kernel import _pack_structures_q16_numpy
 
     rng = np.random.default_rng(11)
     structures = []

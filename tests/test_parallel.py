@@ -11,8 +11,8 @@ def test_virtual_mesh_available():
 
 
 def test_sharded_step_matches_single_device():
-    from rustsasa_tpu.ops.engine import _sasa_batched
-    from rustsasa_tpu.parallel.mesh import (
+    from rustsasa_jax.ops.engine import _sasa_batched
+    from rustsasa_jax.parallel.mesh import (
         make_mesh,
         make_sharded_sasa,
         put_batch_sharded,
@@ -23,7 +23,6 @@ def test_sharded_step_matches_single_device():
 
     ref, _ = _sasa_batched(
         packed, gid, sphere_packed, k=64, n_points=100, probe=1.4,
-        backend="xla",
     )
 
     mesh = make_mesh(8)
@@ -53,7 +52,7 @@ def test_entry_compiles():
 
 
 def test_shard_files_round_robin():
-    from rustsasa_tpu.parallel.distributed import shard_files
+    from rustsasa_jax.parallel.distributed import shard_files
 
     files = [f"f{i}" for i in range(10)]
     shards = [shard_files(files, i, 3) for i in range(3)]
@@ -62,7 +61,7 @@ def test_shard_files_round_robin():
 
 
 def test_allreduce_metrics_single_process():
-    from rustsasa_tpu.parallel.distributed import allreduce_metrics
+    from rustsasa_jax.parallel.distributed import allreduce_metrics
 
     g = allreduce_metrics(10, 8, 2, 1234.5)
     assert (g.n_files, g.n_ok, g.n_errors) == (10, 8, 2)
@@ -70,9 +69,9 @@ def test_allreduce_metrics_single_process():
 
 
 def test_process_directory_distributed_single(reference_data_dir, tmp_path):
-    from rustsasa_tpu.api import SASAOptions
-    from rustsasa_tpu.levels import Level
-    from rustsasa_tpu.parallel.distributed import process_directory_distributed
+    from rustsasa_jax.api import SASAOptions
+    from rustsasa_jax.levels import Level
+    from rustsasa_jax.parallel.distributed import process_directory_distributed
 
     g = process_directory_distributed(
         str(reference_data_dir / "pdbs"),

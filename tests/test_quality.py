@@ -14,9 +14,9 @@ import os
 
 import pytest
 
-from rustsasa_tpu import SASAOptions
-from rustsasa_tpu.batch import process_directory
-from rustsasa_tpu.levels import Level
+from rustsasa_jax import SASAOptions
+from rustsasa_jax.batch import process_directory
+from rustsasa_jax.levels import Level
 
 RMSE_BASELINE = 43.99
 TOLERANCE = 20.0

@@ -16,9 +16,9 @@ import sys
 
 import pytest
 
-from rustsasa_tpu import SASAOptions
-from rustsasa_tpu.batch import process_directory
-from rustsasa_tpu.levels import Level
+from rustsasa_jax import SASAOptions
+from rustsasa_jax.batch import process_directory
+from rustsasa_jax.levels import Level
 
 from test_quality import MAX_RMSE, load_freesasa_chains, load_ours
 

@@ -6,7 +6,7 @@ Spot checks mirror the reference (reference: tests/units.rs:211-277).
 import numpy as np
 import pytest
 
-from rustsasa_tpu import (
+from rustsasa_jax import (
     RadiusMissingError,
     VanDerWaalsMissingError,
     get_protor_radius,
@@ -14,8 +14,8 @@ from rustsasa_tpu import (
     get_vdw_radius,
     parse_radii_config,
 )
-from rustsasa_tpu.data.protor import PROTOR_RADII
-from rustsasa_tpu.radii import resolve_radii
+from rustsasa_jax.data.protor import PROTOR_RADII
+from rustsasa_jax.radii import resolve_radii
 
 
 def test_protor_spot_checks():

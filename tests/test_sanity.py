@@ -10,7 +10,7 @@ import math
 import numpy as np
 import pytest
 
-from rustsasa_tpu import calculate_sasa_internal
+from rustsasa_jax import calculate_sasa_internal
 
 PROBE = 1.4
 N_POINTS = 50_000

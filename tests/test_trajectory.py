@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from rustsasa_tpu import SASAOptions
-from rustsasa_tpu.levels import Level
-from rustsasa_tpu.trajectory import (
+from rustsasa_jax import SASAOptions
+from rustsasa_jax.levels import Level
+from rustsasa_jax.trajectory import (
     compute_trajectory_sasa,
     iter_frame_blocks,
     read_dcd,
@@ -55,7 +55,7 @@ def test_trajectory_sasa_matches_static(tmp_path):
     top = tmp_path / "top.pdb"
     top.write_text(PDB_2RES)
 
-    from rustsasa_tpu.io.read import read_structure
+    from rustsasa_jax.io.read import read_structure
 
     structure = read_structure(str(top))
     opts = SASAOptions(level=Level.RESIDUE)
@@ -90,7 +90,7 @@ def test_trajectory_atom_count_mismatch(tmp_path):
 def test_iter_frame_blocks_streams_without_slurping(tmp_path):
     """No single read may pull more than one block of frames (+ header
     prefix); total reads ~= file size, not a multiple of it."""
-    import rustsasa_tpu.trajectory.dcd as dcd_mod
+    import rustsasa_jax.trajectory.dcd as dcd_mod
 
     coords = np.random.default_rng(2).normal(size=(64, 100, 3)).astype(
         np.float32

@@ -15,12 +15,12 @@ import os
 import numpy as np
 import pytest
 
-from rustsasa_tpu import SASAOptions, read_structure
-from rustsasa_tpu.batch import serialize_result
-from rustsasa_tpu.io import hybrid36
-from rustsasa_tpu.io.pdb import parse_pdb, write_pdb
-from rustsasa_tpu.io.read import parse_structure
-from rustsasa_tpu.levels import Level
+from rustsasa_jax import SASAOptions, read_structure
+from rustsasa_jax.batch import serialize_result
+from rustsasa_jax.io import hybrid36
+from rustsasa_jax.io.pdb import parse_pdb, write_pdb
+from rustsasa_jax.io.read import parse_structure
+from rustsasa_jax.levels import Level
 
 
 def test_hybrid36_encode_decode():
@@ -146,7 +146,7 @@ def test_multichar_chain_pdb_roundtrip(tmp_path):
     back = parse_pdb(text)
     assert sorted({c.id for c in back.chains}) == ["AB", "CD"]
     # Native parser agrees (two-char chain read is mirrored in C++).
-    from rustsasa_tpu.native import parse_file_native
+    from rustsasa_jax.native import parse_file_native
 
     p = tmp_path / "multi.pdb"
     p.write_text(text)
@@ -179,7 +179,7 @@ def test_hybrid36_serial_pdb_roundtrip():
 def test_hybrid36_serials_native_parser_parity(tmp_path):
     """The C++ parser must decode hybrid-36 serial/resSeq fields exactly
     like the Python parser (width-aware, PDB fields only)."""
-    from rustsasa_tpu.native import parse_file_native
+    from rustsasa_jax.native import parse_file_native
 
     rows = []
     for k in range(4):
